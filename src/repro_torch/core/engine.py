@@ -284,9 +284,10 @@ class RoundEngine:
         for g, grp in enumerate(self.groups):
             for j, s in enumerate(grp):
                 self.task_gs[s] = (g, j)
-        # leaf-offset table per group, from one init's shapes
+        # leaf-offset table per group, from the shapes of an init on the
+        # meta device (no values are drawn)
         self.layouts = [FlatLayout.of(
-            self.tasks[grp[0]].model.init(prng.PRNGKey(0)))
+            self.tasks[grp[0]].model.init(prng.PRNGKey(0, "meta")))
             for grp in self.groups]
         self._local_all = [self._make_local_all(s) for s in range(self.S)]
         self._loss_all = [self._make_loss_all(s) for s in range(self.S)]
@@ -344,9 +345,11 @@ class RoundEngine:
             for e in range(E):
                 idx = batch_idx[:, e]
                 g = grad_fn(views, data["x"][rows, idx], data["y"][rows, idx])
+                # each leaf's gradient is freed once applied: at most one
+                # step's [A, P] gradients are alive
                 for n in layout.names:
-                    views[n].sub_(lr * g[n])
-            return w[None] - p
+                    views[n].sub_(lr * g.pop(n))
+            return p.neg_().add_(w)           # w0 - w_final, in p's storage
 
         return local_all
 

@@ -10,6 +10,10 @@ experiment settings on synthetic data, the port of
   * 3-model setting: 3x Fashion-MNIST-like CNN tasks (and any S != 5:
     S image tasks).
 
+``build_model_setting(archs, ...)`` builds the real-model world: one LM
+task per registry arch (qwen3-like transformer, falcon-mamba) through the
+full model stack and its kernels.
+
 The worlds come from the port's own numpy generators, so for one seed they
 are the reference's worlds, array for array.  Entry points run on the card
 (``ExperimentSpec.device="cuda"``) unless the caller asks for the CPU.
@@ -17,16 +21,18 @@ are the reference's worlds, array for array.  Entry points run on the card
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.registry import get_config
 from repro_torch.core.engine import (PROBE_TAKE, ModelAdapter, RoundEngine,
                                      ServerConfig, Task)
 from repro_torch.data import partition, synthetic
-from repro_torch.models import cnn
+from repro_torch.models import cnn, transformer
 
 
 def _cnn_adapter(n_classes: int, channels: int, in_ch: int = 1
@@ -148,6 +154,105 @@ def build_linear_setting(n_models: int = 2, n_clients: int = 16,
     B = rng.integers(1, 4, n_clients)
     avail = np.ones((n_clients, n_models), bool)
     return tasks, B, avail
+
+
+# ---------------------------------------------------------------------------
+# real-model setting: registry archs through the full model stack + kernels
+# ---------------------------------------------------------------------------
+
+
+def _model_cfg(name: str) -> ArchConfig:
+    """Test-scale dims for a registry arch: real structure (GQA heads /
+    SSM recurrence, RoPE, the family's block wiring) at CPU-test sizes.
+    ``.reduced()`` then a further shrink."""
+    cfg = get_config(name).reduced()
+    return dataclasses.replace(cfg, n_layers=2, d_model=64, d_ff=128,
+                               vocab_size=128, n_heads=2, n_kv_heads=1,
+                               head_dim=32, ssm_state=8)
+
+
+def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
+             ) -> Dict[Tuple[str, ...], torch.Tensor]:
+    out: Dict[Tuple[str, ...], torch.Tensor] = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def _unflatten(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for name, v in flat.items():
+        *head, last = name.split(".")
+        node = tree
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return tree
+
+
+def _arch_adapter(cfg: ArchConfig) -> ModelAdapter:
+    """Loss/accuracy/init closures over the full model stack for one arch.
+
+    Leaves are the reference's tree paths joined by dots
+    (``blocks.attn.wq.w``), in its layouts ([in, out] dense weights,
+    stacked blocks with their leading L axis), so ``jax_leaves`` changes
+    no layout.  Call this ONCE per arch config and share the adapter
+    across that arch's tasks: ``task_signature`` compares the closures by
+    identity, so same-arch tasks share a group and distinct archs split."""
+
+    def init(key):
+        return {".".join(path): v for path, v in
+                _flatten(transformer.init(key, cfg)).items()}
+
+    def loss_fn(p, batch):
+        return transformer.forward(_unflatten(p), cfg,
+                                   {"tokens": batch["x"]})[0]
+
+    def accuracy(p, batch):
+        lg = transformer.logits(_unflatten(p), cfg, {"tokens": batch["x"]})
+        tgt = batch["x"][:, 1:].long()
+        return (lg[:, :-1].argmax(-1) == tgt).float().mean()
+
+    paths = _flatten(transformer.init(prng.PRNGKey(0, "meta"), cfg))
+    return ModelAdapter(init=init, loss_fn=loss_fn, accuracy=accuracy,
+                        jax_leaves={".".join(p): (p, None) for p in paths})
+
+
+def build_model_setting(archs: Sequence[str] = ("qwen3-0.6b", "qwen3-0.6b",
+                                                "falcon-mamba-7b"),
+                        n_clients: int = 8, cap: int = 8, seq_len: int = 16,
+                        seed: int = 0,
+                        cfgs: Optional[Dict[str, ArchConfig]] = None
+                        ) -> Tuple[List[Task], np.ndarray, np.ndarray]:
+    """Real-model task world: one LM task per entry of ``archs``, each
+    running the registry architecture (at ``_model_cfg`` dims, or at the
+    config ``cfgs`` gives for its name) with its own non-iid token shards.
+    The default world is the mixed transformer+mamba case: two qwen3 tasks
+    share one adapter (one group), the falcon-mamba task forms a second.
+
+    Returns (tasks, B, avail) in the ``build_linear_setting`` contract."""
+    rng = np.random.default_rng(seed)
+    cfgs = dict(cfgs or {})
+    adapters: Dict[str, ModelAdapter] = {}
+    tasks: List[Task] = []
+    for s, name in enumerate(archs):
+        if name not in adapters:
+            cfgs.setdefault(name, _model_cfg(name))
+            adapters[name] = _arch_adapter(cfgs[name])
+        x, test_x = synthetic.make_token_task(rng, cfgs[name].vocab_size,
+                                              n_clients, cap, seq_len)
+        # next-token targets live inside "x"; "y" is a schema placeholder
+        tasks.append(Task(
+            name=f"{name}-{s}", model=adapters[name],
+            data={"x": x, "y": np.zeros((n_clients, cap), np.int32),
+                  "count": np.full((n_clients,), cap, np.int32)},
+            test={"x": test_x,
+                  "y": np.zeros((test_x.shape[0],), np.int32)}))
+    B = rng.integers(1, 4, n_clients)
+    return tasks, B, np.ones((n_clients, len(archs)), bool)
 
 
 # ---------------------------------------------------------------------------

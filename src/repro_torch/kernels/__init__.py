@@ -14,7 +14,8 @@ from __future__ import annotations
 
 from typing import Dict
 
-launch_counts: Dict[str, int] = {"batched_dot": 0, "stale_agg_refresh": 0}
+launch_counts: Dict[str, int] = {"batched_dot": 0, "stale_agg_refresh": 0,
+                                 "flash_attention": 0, "selective_scan": 0}
 
 
 def reset_launch_counts() -> None:

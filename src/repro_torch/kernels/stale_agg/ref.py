@@ -19,12 +19,14 @@ def stale_agg_refresh_ref(coeff: torch.Tensor, beta: torch.Tensor,
     A slot with coeff == 0 and act == 0 adds nothing, even where its G row
     is not finite."""
     coeff, beta, act = coeff.float(), beta.float(), act.float()
-    idx = idx.long()
-    rows = h[idx]                                           # pre-refresh
+    rows = idx.tolist()
     delta = stale_sum.float().clone()
     live = (coeff != 0) | (act != 0)
-    for c in range(G.shape[0]):
-        contrib = coeff[c] * (G[c] - beta[c] * rows[c])
+    # row by row, as the kernel: no [C, P] gather of the store
+    for c, i in enumerate(rows):
+        contrib = coeff[c] * (G[c] - beta[c] * h[i])        # pre-refresh
         delta += torch.where(live[c], contrib, torch.zeros_like(contrib))
-    h[idx] = torch.where((act > 0)[:, None], G.to(h.dtype), rows)
+    for c, i in enumerate(rows):
+        if act[c] > 0:
+            h[i] = G[c]
     return delta

@@ -1,7 +1,8 @@
 """The port stands alone: nothing under ``src/repro_torch/`` (and not
 ``chip_smoke.py``) imports JAX or the reference package, ``triton`` is
-imported only inside the functions that launch a kernel, a round runs with
-JAX absent from ``sys.modules``, and the default device is the card."""
+imported only inside the functions that launch a kernel, a round of the
+linear and of the real-model world runs with JAX absent from
+``sys.modules``, and the default device is the card."""
 import ast
 import os
 import subprocess
@@ -56,6 +57,12 @@ def test_one_round_runs_without_jax():
         " device='cpu')\n"
         "state, mets = eng.round_step(eng.init_state())\n"
         "assert state.round == 1 and mets['beta'].shape == (2, 16)\n"
+        "from repro_torch.fl.experiments import build_model_setting\n"
+        "tasks, B, avail = build_model_setting()\n"
+        "eng = RoundEngine(tasks, B, avail, ServerConfig(method='stalevre',"
+        " local_epochs=1, batch_size=4, active_rate=0.5), device='cpu')\n"
+        "state, mets = eng.round_step(eng.init_state())\n"
+        "assert state.round == 1 and mets['beta'].shape == (3, 8)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'triton')]\n"
         "assert not bad, bad\n"
